@@ -1,10 +1,10 @@
-"""meep_nl_tpu: a TPU-native FDTD electromagnetics framework.
+"""meep_nl_tpu: an FDTD electromagnetics framework in JAX.
 
 Brand-new JAX/XLA implementation of the capabilities of the meep_nl fork of
 Meep (reference layer map in SURVEY.md): full-vector Maxwell time-stepping on
 the staggered Yee grid, uPML, dispersive and nonlinear (chi2 Pockels via
 Newton inversion, chi3 Kerr) media, in-loop DTFT monitors, and native
-jax.grad adjoints, sharded over TPU meshes with shard_map halo exchange.
+jax.grad adjoints, sharded over device meshes by GSPMD.
 """
 
 from .core import grid

@@ -11,7 +11,7 @@ create_adjoint_sources utils.py:221) and a C++ gradient kernel
 is one pure JAX function, so jax.grad produces the same gradient with a
 single reverse pass.  Memory is bounded with two-level scan rematerialization
 (outer blocks checkpointed, inner steps recomputed in the backward sweep) --
-the TPU analog of the adjoint run's storage trade-off.
+the array-program analog of the adjoint run's storage trade-off.
 """
 
 from __future__ import annotations

@@ -129,7 +129,7 @@ def solve_cw(plan: Plan, freq: float, tol: float = 1e-6,
     Uses the m-step operator (A^m - lambda^m): the one-step operator's
     spectrum hugs the unit circle (unitary propagation), which stalls
     unpreconditioned Krylov; m steps per application widens the spectral
-    gaps --- the TPU-friendly stand-in for the reference's BiCGSTAB(L)
+    gaps --- the matrix-free stand-in for the reference's BiCGSTAB(L)
     polynomial smoothing (bicgstab.cpp L=2)."""
     op, rhs, _ = _build_ops(plan, freq, m)
     C = plan.coefs

@@ -1,6 +1,6 @@
 """Yee-grid core: directions, field components, and grid geometry.
 
-TPU-native re-design of the reference's grid layer (meep `src/meep/vec.hpp`:
+Array re-design of the reference's grid layer (meep `src/meep/vec.hpp`:
 `component` enum at vec.hpp:31, `grid_volume` at vec.hpp:1014, Yee offsets
 `iyee_shift` at vec.hpp:1133).  Instead of flat pointer arrays walked by LOOP
 macros, every field component is stored as a dense (N1+1, ..., Nd+1) array in

@@ -1,7 +1,7 @@
 """Run-control DSL: step-function combinators and stop conditions
 (analog of python/simulation.py:4991-5445).
 
-TPU adaptation: python callbacks cannot run inside the compiled scan, so the
+Compiled-loop adaptation: python callbacks cannot run inside the compiled scan, so the
 runner splits the time loop into jitted blocks and invokes callbacks at block
 boundaries (every `dt` time units); Harminv-style collectors instead ride the
 scan as probe outputs (stepper.step ProbeSpec) and never leave the device

@@ -3,7 +3,7 @@
 The analog of meepgeom.cpp `set_materials_from_geometry` (meepgeom.cpp:233) +
 the subpixel smoothing of anisotropic_averaging.cpp.  Setup runs once in
 NumPy (SURVEY.md section 7: the setup pass stays host-side); only the stepper
-runs on TPU.
+runs on the accelerator.
 
 Subpixel scheme (round-1 "Kottke-lite"): each component site's voxel is
 supersampled; for interface voxels we estimate the interface normal from the

@@ -3,7 +3,7 @@
 Analog of divide_parallel_processes / merge_subgroup_data (mympi.cpp:818,
 python/tests/test_divide_mpi_processes.py): the reference splits
 MPI_COMM_WORLD so embarrassingly-parallel parameter sweeps each get a group
-of ranks.  On TPU the same role is filled by splitting the device list into
+of ranks.  Here the same role is filled by splitting the device list into
 sub-meshes and running one simulation per sub-mesh; results merge on the
 host.
 """

@@ -2,7 +2,7 @@
 time_sink/timing_scope, meep.hpp:1610-1653, and
 python/timing_measurements.py).
 
-On TPU the per-phase breakdown inside a fused scan is not observable from
+On the device the per-phase breakdown inside a compiled scan is not observable from
 the host; the meaningful metrics are wall time per run block, steps/sec, and
 cell-updates/sec, plus jax.profiler traces for on-device breakdowns."""
 
@@ -48,7 +48,7 @@ class Timers:
 
 
 def profiler_trace(logdir: str):
-    """jax.profiler trace context for on-device phase breakdowns (the TPU
-    analog of the reference's per-kernel timing_scope)."""
+    """jax.profiler trace context for on-device phase breakdowns (the
+    device-side analog of the reference's per-kernel timing_scope)."""
     import jax
     return jax.profiler.trace(logdir)

@@ -121,7 +121,7 @@ F_DISK_EXACT = 0.3452936
 def test_disk_tensor_convergence():
     """Analytic-normal tensor smoothing converges to the exact disk
     resonance: error at least ~halves per resolution doubling (measured
-    1.64e-2 / 8.4e-3 / 3.7e-3 / 1.0e-3 at res 10/20/40/80 on TPU, order
+    1.64e-2 / 8.4e-3 / 3.7e-3 / 1.0e-3 at res 10/20/40/80, order
     rising to ~1.9; staircase and diagonal-blend plateau at 1-2e-3)."""
     e10 = abs(_disk_te_mode(10, True, True).freq - F_DISK_EXACT)
     e20 = abs(_disk_te_mode(20, True, True).freq - F_DISK_EXACT)

@@ -24,8 +24,7 @@ def _plan_of(sim):
 def _assert_invariant(plan, nsteps=60, atol_scale=5e-6):
     st_ref = run(plan, init_state(plan), nsteps)
     mesh = PM.make_mesh(8, shape=(8,))
-    st_sh = PM.sharded_run(plan, mesh, init_state(plan), nsteps,
-                           prefer_fused=False)
+    st_sh = PM.sharded_run(plan, mesh, init_state(plan), nsteps)
     scale = max(float(np.max(np.abs(np.asarray(v))))
                 for v in st_ref["f"].values())
     assert scale > 0
@@ -46,7 +45,7 @@ def test_rot2_3d_sharded():
     sim = mnt.Simulation(cell_size=mnt.Vector3(8, 8, 8), resolution=4,
                          boundary_layers=[mnt.PML(1.0)], sources=_src3d(),
                          symmetries=[mnt.Rotate2("z")],
-                         eps_averaging=False, use_fused=False)
+                         eps_averaging=False)
     _assert_invariant(_plan_of(sim))
 
 
@@ -55,7 +54,7 @@ def test_mirror_3d_sharded():
     sim = mnt.Simulation(cell_size=mnt.Vector3(8, 8, 8), resolution=4,
                          boundary_layers=[mnt.PML(1.0)], sources=_src3d(),
                          symmetries=[mnt.Mirror("y")],
-                         eps_averaging=False, use_fused=False)
+                         eps_averaging=False)
     _assert_invariant(_plan_of(sim))
 
 
@@ -67,7 +66,7 @@ def test_mirror_x_3d_sharded():
     sim = mnt.Simulation(cell_size=mnt.Vector3(8, 8, 8), resolution=4,
                          boundary_layers=[mnt.PML(1.0)], sources=src,
                          symmetries=[mnt.Mirror("x")],
-                         eps_averaging=False, use_fused=False)
+                         eps_averaging=False)
     _assert_invariant(_plan_of(sim))
 
 
@@ -75,12 +74,12 @@ def test_rot4_3d_sharded():
     """C4 quarter wedge: the ghost is a TRANSPOSED read of the x<->y
     swapped component — under x-sharding that transpose is an
     all-to-all-like collective.  Geometry chosen so the unpadded square
-    wedge (rot4 skips x-padding) is divisible by the 8-shard mesh:
+    wedge is divisible by the 8-shard mesh:
     N=62 cells -> 32 wedge sites."""
     src = [mnt.Source(mnt.GaussianSource(frequency=0.4, fwidth=0.2),
                       component=mnt.Ez, center=mnt.Vector3(3.3, 1.1, 0.5))]
     sim = mnt.Simulation(cell_size=mnt.Vector3(31, 31, 4), resolution=2,
                          boundary_layers=[mnt.PML(2.0)], sources=src,
                          symmetries=[mnt.Rotate4("z")],
-                         eps_averaging=False, use_fused=False)
+                         eps_averaging=False)
     _assert_invariant(_plan_of(sim))

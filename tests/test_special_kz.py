@@ -99,7 +99,7 @@ def test_kz_courant_guard():
 
 
 def test_kz_real_pair_equivalence():
-    """The real-pair channel (TPU execution mode) reproduces the complex
+    """The real-pair channel (MNT_REAL_PAIR storage) reproduces the complex
     path with beta active."""
     import os
     os.environ["MNT_REAL_PAIR"] = "1"
